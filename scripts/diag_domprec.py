@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 import numpy as np
 from utils import make_positions, random_genotypes
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld, preprocess
-from nldsc_tpu.ld.pipeline import compute_ld_scores
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld, preprocess
+from nldsc_jax.ld.pipeline import compute_ld_scores
 
 worst = []
 for seed in range(40):

@@ -12,7 +12,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-from nldsc_tpu.ld.oracle import oracle_ld_annot
+from nldsc_jax.ld.oracle import oracle_ld_annot
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
 WIND, MAF, STD = 12000.0, 0.01, 1e-4

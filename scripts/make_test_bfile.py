@@ -11,7 +11,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 
-from nldsc_tpu.io.plink import write_plink
+from nldsc_jax.io.plink import write_plink
 from utils import random_genotypes
 
 

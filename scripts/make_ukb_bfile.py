@@ -15,7 +15,7 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from nldsc_tpu.io.plink import PLINK_MAGIC, encode_bed_bytes
+from nldsc_jax.io.plink import PLINK_MAGIC, encode_bed_bytes
 
 prefix = sys.argv[1]
 M = int(sys.argv[2]) if len(sys.argv) > 2 else 65536

@@ -16,9 +16,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.io.plink import BedReader, encode_bed_bytes, PLINK_MAGIC
-from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+from nldsc_jax.config import LDConfig
+from nldsc_jax.io.plink import BedReader, encode_bed_bytes, PLINK_MAGIC
+from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
 
 def write_big_bed(path, m, n, seed=0, row_chunk=4096):

@@ -15,7 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nldsc_tpu.ld import ld_int8, windows
+from nldsc_jax.ld import ld_int8, windows
 
 M_SEG, N, W = 16384, 16384, 1000
 SEGMENTS = 4

@@ -32,7 +32,7 @@ N_CHROM = int(sys.argv[1]) if len(sys.argv) > 1 else 20
 N = int(sys.argv[2]) if len(sys.argv) > 2 else 8192
 M_BASE = int(sys.argv[3]) if len(sys.argv) > 3 else 8192
 
-from nldsc_tpu.io.plink import write_plink
+from nldsc_jax.io.plink import write_plink
 
 
 def cli(*args, timeout=3600):
@@ -40,7 +40,7 @@ def cli(*args, timeout=3600):
     env["PYTHONPATH"] = (os.path.abspath(".") + ":"
                          + env.get("PYTHONPATH", ""))
     t0 = time.time()
-    r = subprocess.run([sys.executable, "-m", "nldsc_tpu.cli", *args],
+    r = subprocess.run([sys.executable, "-m", "nldsc_jax.cli", *args],
                        capture_output=True, text=True, timeout=timeout,
                        env=env)
     dt = time.time() - t0

@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from nldsc_tpu.ld import ld_int8, windows
+from nldsc_jax.ld import ld_int8, windows
 
 M = N = 16384
 W = 1000
@@ -128,9 +128,9 @@ def make_chained(pass_fn):
 def timeit(name, fn, *a):
     np.asarray(fn(*a))                    # compile+warm
     t0 = time.time()
-    np.asarray(fn(*a))                    # memoized? inputs identical!
+    np.asarray(fn(*a))
     dt = time.time() - t0
-    print(f"(memo-check {name}: {dt*1e3:.1f} ms)", flush=True)
+    print(f"(repeat {name}: {dt*1e3:.1f} ms)", flush=True)
     s2 = a[-1] + jnp.float32(1e-20)       # distinct input, defeat memo
     t0 = time.time()
     np.asarray(fn(*a[:-1], s2))

@@ -1,11 +1,11 @@
 """Time the reference's OWN executed C++ LD kernel (BASELINE.md item 2).
 
-The executed-parity harness (nldsc_tpu/native/refshim, r4) makes the
+The executed-parity harness (nldsc_jax/native/refshim, r4) makes the
 reference binary runnable here for the first time: this measures its
 wall-clock on synthetic bfiles at the BASELINE protocol scales — the
 reference's `calculate()` compiled with its own flags (-O3 -march=native
 -fopenmp) running all host cores — for a like-for-like anchor against
-the TPU engine rates in bench.py / PERFORMANCE.md.
+the device engine rates in bench.py.
 
 Usage: python scripts/time_reference.py [M] [N] [WIN_SNPS]
 """
@@ -25,8 +25,8 @@ N = int(sys.argv[2]) if len(sys.argv) > 2 else 1_000
 W = int(sys.argv[3]) if len(sys.argv) > 3 else 1_000
 SPACING = 100.0
 
-from nldsc_tpu.io.plink import write_plink
-from nldsc_tpu.native import refbinary
+from nldsc_jax.io.plink import write_plink
+from nldsc_jax.native import refbinary
 
 if not refbinary.available():
     raise SystemExit("reference tree not mounted / build failed")

@@ -13,7 +13,7 @@ sys.path.insert(0, ".")
 
 import jax.numpy as jnp
 
-from nldsc_tpu.ld import ld_int8, windows
+from nldsc_jax.ld import ld_int8, windows
 
 M = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
 N = int(sys.argv[2]) if len(sys.argv) > 2 else 16384

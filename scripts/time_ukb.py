@@ -17,7 +17,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nldsc_tpu.ld import ld_int8, ld_split, windows
+from nldsc_jax.ld import ld_int8, ld_split, windows
 
 M, N, W, B = 4096, 300032, 1000, 256
 SPACING = 100.0

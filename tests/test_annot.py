@@ -6,9 +6,9 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld, oracle_ld_annot
-from nldsc_tpu.ld.pipeline import compute_ld_scores_annot
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld, oracle_ld_annot
+from nldsc_jax.ld.pipeline import compute_ld_scores_annot
 from utils import make_positions, random_genotypes
 
 WIND, MAF, STD = 12000.0, 0.01, 1e-4
@@ -85,9 +85,9 @@ def test_annot_engine_skip_sentinels():
 def test_annot_end_to_end_files(tmp_path):
     # write a bfile + annot file, run the partitioned ld CLI path, feed the
     # partitioned .L2 into the partitioned h2 pipeline
-    from nldsc_tpu.h2.pipeline import estimate_h2_partitioned
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import estimate_lds
+    from nldsc_jax.h2.pipeline import estimate_h2_partitioned
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import estimate_lds
 
     rng = np.random.default_rng(7)
     m, n = 600, 400
@@ -126,8 +126,8 @@ def test_annot_end_to_end_files(tmp_path):
 def test_annot_streaming_matches_oracle(tmp_path, use_int8):
     # the out-of-core partitioned path (VERDICT r1 weak #6): chunked band
     # recompute with the per-chunk annotation contraction
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
     rng = np.random.default_rng(44)
     m, n = 500, 220
@@ -212,9 +212,9 @@ def test_annot_sharded_matches_dense(axis):
     (VERDICT r3 #3: --annot no longer degrades to a single device)."""
     import jax
 
-    from nldsc_tpu.parallel import (ld_scores_sample_sharded,
+    from nldsc_jax.parallel import (ld_scores_sample_sharded,
                                     ld_scores_sharded, snp_mesh)
-    from nldsc_tpu.parallel.grid_sharded import (grid_mesh,
+    from nldsc_jax.parallel.grid_sharded import (grid_mesh,
                                                  ld_scores_grid_sharded)
 
     if len(jax.devices()) < 8:
@@ -242,9 +242,9 @@ def test_annot_sharded_matches_dense(axis):
 def test_annot_streaming_split_matches_dense(tmp_path):
     """Streaming annot × split-missing (r4): the chunk annot payload
     absorbs the annot δ-corrections; equals the dense annot engine."""
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
-    from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.pipeline import compute_ld_scores
+    from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
     rng = np.random.default_rng(51)
     g, pos, annot = _row_missing(rng, m=520, n=220)
@@ -272,11 +272,11 @@ def test_annot_streaming_meshes_match_dense(tmp_path, axis):
     last annot gap) == the dense annot engine."""
     import jax
 
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
-    from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
-    from nldsc_tpu.parallel import snp_mesh
-    from nldsc_tpu.parallel.grid_sharded import grid_mesh
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.pipeline import compute_ld_scores
+    from nldsc_jax.ld.streaming import compute_ld_scores_streaming
+    from nldsc_jax.parallel import snp_mesh
+    from nldsc_jax.parallel.grid_sharded import grid_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -302,8 +302,8 @@ def test_annot_cli_sharded(tmp_path):
     """estimate_lds --annot now honors n_devices/shard flags end-to-end."""
     import jax
 
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import estimate_lds
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import estimate_lds
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -330,9 +330,9 @@ def test_annot_cli_sharded(tmp_path):
 
 
 def test_n_devices_validation(tmp_path):
-    from nldsc_tpu.core.errors import NLDSCParameterError
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import estimate_lds
+    from nldsc_jax.core.errors import NLDSCParameterError
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import estimate_lds
 
     rng = np.random.default_rng(50)
     g, pos, _ = _setup(rng, m=64, n=64, missing_rate=0.0)
@@ -344,7 +344,7 @@ def test_n_devices_validation(tmp_path):
 
 
 def test_read_annot_alignment(tmp_path):
-    from nldsc_tpu.io.ldscores import read_annot
+    from nldsc_jax.io.ldscores import read_annot
 
     bim = pd.DataFrame({"SNP": ["a", "b", "c"]})
     # shuffled order + an extra SNP not in bim + one bim SNP missing

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from nldsc_tpu.compat import LDScoreParams, LDScoreResult, calculate
-from nldsc_tpu.io.plink import write_plink
-from nldsc_tpu.ld.oracle import oracle_ld
+from nldsc_jax.compat import LDScoreParams, LDScoreResult, calculate
+from nldsc_jax.io.plink import write_plink
+from nldsc_jax.ld.oracle import oracle_ld
 
 from utils import make_positions, random_genotypes
 
@@ -48,7 +48,7 @@ def test_positions_sentinel_via_compat(tmp_path, rng):
 def test_calculate_routes_big_inputs_to_streaming(tmp_path, rng, monkeypatch):
     # shrink the threshold so this toy input takes the out-of-core path,
     # and check results are unchanged
-    import nldsc_tpu.ld.pipeline as ld_pipeline
+    import nldsc_jax.ld.pipeline as ld_pipeline
 
     m, n = 96, 70
     g = random_genotypes(rng, m, n, missing_rate=0.02)
@@ -60,7 +60,7 @@ def test_calculate_routes_big_inputs_to_streaming(tmp_path, rng, monkeypatch):
     dense = calculate(params, block_size=16)
 
     called = {}
-    import nldsc_tpu.ld.streaming as streaming_mod
+    import nldsc_jax.ld.streaming as streaming_mod
     orig = streaming_mod.compute_ld_scores_streaming
 
     def spy(*a, **k):
@@ -68,7 +68,7 @@ def test_calculate_routes_big_inputs_to_streaming(tmp_path, rng, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(streaming_mod, "compute_ld_scores_streaming", spy)
-    monkeypatch.setattr(ld_pipeline, "STREAMING_BYTES_THRESHOLD", 1)
+    monkeypatch.setattr(ld_pipeline, "streaming_bytes_limit", lambda: 1)
     streamed = calculate(params, block_size=16)
     assert called.get("yes")
     np.testing.assert_allclose(np.array(streamed.l2), np.array(dense.l2),

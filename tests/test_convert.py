@@ -8,8 +8,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from nldsc_tpu.io.convert import from_ldsc, to_ldsc
-from nldsc_tpu.io.ldscores import read_ld_scores
+from nldsc_jax.io.convert import from_ldsc, to_ldsc
+from nldsc_jax.io.ldscores import read_ld_scores
 
 
 def _toy_l2(tmp_path, m=300, seed=4):
@@ -70,8 +70,8 @@ def test_from_ldsc_uncompressed_and_h2(tmp_path):
     scores, M, MD = read_ld_scores(out)
     assert M == 2800 and MD == 0
 
-    from nldsc_tpu.config import H2Config
-    from nldsc_tpu.h2.pipeline import estimate_h2_frames
+    from nldsc_jax.config import H2Config
+    from nldsc_jax.h2.pipeline import estimate_h2_frames
 
     h2_true = 0.3
     expect = 1.0 + n_ind * h2_true * l2 / 2800

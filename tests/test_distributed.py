@@ -4,8 +4,8 @@ import numpy as np
 
 import jax
 
-from nldsc_tpu.parallel import distributed as dist
-from nldsc_tpu.parallel.mesh import snp_mesh
+from nldsc_jax.parallel import distributed as dist
+from nldsc_jax.parallel.mesh import snp_mesh
 
 from utils import make_positions, random_genotypes
 
@@ -35,9 +35,9 @@ def test_mesh_level_end_to_end_matches_dense(tmp_path, rng):
     """The full P4 path: per-device byte-range .bed ingestion -> global
     sharded assembly -> shard_map engine == the dense single-device result
     (each of the 8 virtual devices stands in for a host)."""
-    from nldsc_tpu.config import LDConfig
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
+    from nldsc_jax.config import LDConfig
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import compute_ld_scores
 
     m, n = 300, 150
     g = random_genotypes(rng, m, n, missing_rate=0.03)
@@ -73,9 +73,9 @@ def test_mesh_level_annot_matches_dense(tmp_path, rng):
     annot rows assemble/shard like the genotype rows."""
     import pandas as pd
 
-    from nldsc_tpu.config import LDConfig
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
+    from nldsc_jax.config import LDConfig
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import compute_ld_scores
 
     m, n = 256, 128
     g = random_genotypes(rng, m, n, missing_rate=0.02)
@@ -105,7 +105,7 @@ def test_mesh_level_annot_matches_dense(tmp_path, rng):
 
 
 def test_multihost_driver_runs_locally(tmp_path, rng):
-    from nldsc_tpu.io.plink import write_plink
+    from nldsc_jax.io.plink import write_plink
 
     prefixes = []
     for chrom in (21, 22):

@@ -14,7 +14,7 @@ from utils import make_positions, random_genotypes
 
 @pytest.fixture(scope="module")
 def toy_bfile(tmp_path_factory):
-    from nldsc_tpu.io.plink import write_plink
+    from nldsc_jax.io.plink import write_plink
 
     rng = np.random.default_rng(7)
     m, n = 400, 250
@@ -25,13 +25,12 @@ def toy_bfile(tmp_path_factory):
 
 
 def test_ld_pipeline_files(toy_bfile, tmp_path):
-    from nldsc_tpu.ld.pipeline import estimate_lds
+    from nldsc_jax.ld.pipeline import estimate_lds
 
     prefix, g, bp, _ = toy_bfile
     out = str(tmp_path / "chr22.L2")
     estimate_lds(prefix, ld_wind=10, wind_metric="kbp", maf_thr=0.01,
-                 std_thr=1e-4, out=out, extra=True, block_size=64,
-                 use_pallas=False)
+                 std_thr=1e-4, out=out, extra=True, block_size=64)
 
     df = pd.read_csv(out, sep="\t")
     assert list(df.columns) == ["CHR", "SNP", "BP", "L2", "L2D",
@@ -44,7 +43,7 @@ def test_ld_pipeline_files(toy_bfile, tmp_path):
     assert 0 < int(m_df["M"].iloc[0]) <= 400
 
     # parity of the file contents vs oracle at the written precision
-    from nldsc_tpu.ld.oracle import oracle_ld
+    from nldsc_jax.ld.oracle import oracle_ld
 
     ora = oracle_ld(g, bp, 10000.0, 0.01, 1e-4, 1.0 / 400)
     np.testing.assert_allclose(df["L2"].to_numpy(), ora["l2"],
@@ -54,7 +53,7 @@ def test_ld_pipeline_files(toy_bfile, tmp_path):
     # bench.py emits these so a slow e2e figure is attributable.  The
     # single-device in-core route records all four stages (the bench
     # path); multi-device routes record disk/write only.
-    from nldsc_tpu.ld.pipeline import STAGE_TIMES
+    from nldsc_jax.ld.pipeline import STAGE_TIMES
 
     estimate_lds(prefix, ld_wind=10, wind_metric="kbp", maf_thr=0.01,
                  std_thr=1e-4, out=str(tmp_path / "one.L2"),
@@ -65,14 +64,13 @@ def test_ld_pipeline_files(toy_bfile, tmp_path):
 
 
 def test_h2_pipeline_files(toy_bfile, tmp_path):
-    from nldsc_tpu.ld.pipeline import estimate_lds
-    from nldsc_tpu.h2.pipeline import estimate_h2
+    from nldsc_jax.ld.pipeline import estimate_lds
+    from nldsc_jax.h2.pipeline import estimate_h2
 
     prefix, g, bp, rng = toy_bfile
     out = str(tmp_path / "scores.L2")
     estimate_lds(prefix, ld_wind=10, wind_metric="kbp", maf_thr=0.01,
-                 std_thr=1e-4, out=out, extra=True, block_size=64,
-                 use_pallas=False)
+                 std_thr=1e-4, out=out, extra=True, block_size=64)
 
     df = pd.read_csv(out, sep="\t").dropna()
     m = len(df)
@@ -92,14 +90,11 @@ def test_h2_pipeline_files(toy_bfile, tmp_path):
 
 
 def test_cli_ld_and_h2(toy_bfile, tmp_path, rng):
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
+    from utils import run_cli
 
     prefix, *_ = toy_bfile
     out = str(tmp_path / "cli.L2")
-    runner = CliRunner()
-    res = runner.invoke(main, ["ld", "--bfile", prefix, "-kb", "10",
+    res = run_cli(["ld", "--bfile", prefix, "-kb", "10",
                                "-maf", "0.01", "--extra", "-o", out,
                                "--block-size", "64", "--display"])
     assert res.exit_code == 0, res.output
@@ -112,7 +107,7 @@ def test_cli_ld_and_h2(toy_bfile, tmp_path, rng):
                        "N": 5000.0})
     ss_path = str(tmp_path / "cli.sumstats")
     ss.to_csv(ss_path, sep="\t", index=False)
-    res = runner.invoke(main, ["h2", "--sumstats", ss_path, "--ref-ld", out,
+    res = run_cli(["h2", "--sumstats", ss_path, "--ref-ld", out,
                                "--w-ld", out, "--n-blocks", "20", "--display"])
     assert res.exit_code == 0, res.output
     assert "h2 summary" in res.output
@@ -123,68 +118,58 @@ def test_cli_ld_and_h2(toy_bfile, tmp_path, rng):
     import shutil
     wld = str(tmp_path / "weights.L2")
     shutil.copy(out, wld)
-    res = runner.invoke(main, ["h2", "--sumstats", ss_path, "--ref-ld", out,
+    res = run_cli(["h2", "--sumstats", ss_path, "--ref-ld", out,
                                "--w-ld", wld, "--n-blocks", "20",
                                "--display"])
     assert res.exit_code == 0, res.output
     assert "h2 summary" in res.output
 
     # a nonexistent w-ld path still fails cleanly
-    res = runner.invoke(main, ["h2", "--sumstats", ss_path, "--ref-ld", out,
+    res = run_cli(["h2", "--sumstats", ss_path, "--ref-ld", out,
                                "--w-ld", "other"])
     assert res.exit_code != 0
 
 
 def test_cli_options_match_signatures():
-    # structural gate: a click option without a matching function parameter
-    # crashes EVERY invocation of that command (round-2 regression: the
-    # --shard-axis option shipped without the est_ld parameter).  Invoking
-    # the callback is too slow to do for every flag combination, so check
-    # the wiring itself: every click Option's destination name must be a
-    # parameter of the wrapped function (handle_exception consumes
-    # `display`, the group consumes its own options).
+    # structural gate: a command that reads an option the parser does not
+    # define crashes EVERY invocation of that command (round-2 regression:
+    # the --shard-axis option shipped without its use).  Invoking every
+    # command per flag combination is too slow, so check the wiring
+    # itself: every ``args.<name>`` a command function reads is a
+    # destination of that command's parser.
+    import argparse
     import inspect
+    import re
 
-    import click
+    from nldsc_jax import cli
 
-    from nldsc_tpu.cli import main
-
-    for cmd_name, cmd in main.commands.items():
-        fn = inspect.unwrap(cmd.callback)
-        # unwrap the handle_exception closure to the real function
-        while fn.__closure__:
-            inner = [c.cell_contents for c in fn.__closure__
-                     if callable(c.cell_contents)]
-            if not inner:
-                break
-            fn = inner[0]
-        params = set(inspect.signature(fn).parameters)
-        for opt in cmd.params:
-            if not isinstance(opt, click.Option):
-                continue
-            if opt.name == "display":  # consumed by handle_exception
-                continue
-            assert opt.name in params, (
-                f"CLI command {cmd_name!r}: option --{opt.name} has no "
-                f"matching parameter on {fn.__name__}()")
+    parser = cli.build_parser()
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    assert set(sub.choices) == {"ld", "ld-genome", "h2", "convert"}
+    for name, p in sub.choices.items():
+        func = p.get_default("func")
+        dests = {a.dest for a in p._actions} | {"func"}
+        used = set(re.findall(r"args\.(\w+)", inspect.getsource(func)))
+        if func in (cli.est_ld, cli.est_ld_genome):
+            used |= set(re.findall(r"args\.(\w+)",
+                                   inspect.getsource(cli._window)))
+        assert used <= dests, (name, sorted(used - dests))
 
 
 def test_cli_shard_axis_samples(toy_bfile, tmp_path):
     # --shard-axis samples must route through the sample-sharded engine
     # and match the default engine's output
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
+    from utils import run_cli
 
     prefix, *_ = toy_bfile
-    runner = CliRunner()
     out_def = str(tmp_path / "def.L2")
     out_smp = str(tmp_path / "smp.L2")
     base_args = ["ld", "--bfile", prefix, "-kb", "10", "-maf", "0.01",
                  "--block-size", "64", "--display"]
-    res = runner.invoke(main, [*base_args, "-o", out_def])
+    res = run_cli([*base_args, "-o", out_def])
     assert res.exit_code == 0, res.output
-    res = runner.invoke(main, [*base_args, "-o", out_smp,
+    res = run_cli([*base_args, "-o", out_smp,
                                "--shard-axis", "samples", "--n-devices", "4"])
     assert res.exit_code == 0, res.output
     a = pd.read_csv(out_def, sep="\t")
@@ -198,23 +183,20 @@ def test_cli_shard_axis_grid(toy_bfile, tmp_path):
     # --shard-axis grid routes the in-core 2-D (snp x samp) mesh engine
     # (and with --streaming, the chunk-ring of sample submeshes); both
     # must match the default engine's output
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
+    from utils import run_cli
 
     prefix, *_ = toy_bfile
-    runner = CliRunner()
     out_def = str(tmp_path / "gdef.L2")
     out_grid = str(tmp_path / "grid.L2")
     out_gs = str(tmp_path / "gstream.L2")
     base_args = ["ld", "--bfile", prefix, "-kb", "10", "-maf", "0.01",
                  "--block-size", "64", "--display"]
-    res = runner.invoke(main, [*base_args, "-o", out_def])
+    res = run_cli([*base_args, "-o", out_def])
     assert res.exit_code == 0, res.output
-    res = runner.invoke(main, [*base_args, "-o", out_grid,
+    res = run_cli([*base_args, "-o", out_grid,
                                "--shard-axis", "grid", "--n-devices", "4"])
     assert res.exit_code == 0, res.output
-    res = runner.invoke(main, [*base_args, "-o", out_gs, "--streaming",
+    res = run_cli([*base_args, "-o", out_gs, "--streaming",
                                "--chunk-rows", "128",
                                "--shard-axis", "grid", "--n-devices", "4"])
     assert res.exit_code == 0, res.output
@@ -227,15 +209,12 @@ def test_cli_shard_axis_grid(toy_bfile, tmp_path):
 
 
 def test_cli_requires_one_window(toy_bfile):
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
+    from utils import run_cli
 
     prefix, *_ = toy_bfile
-    runner = CliRunner()
-    res = runner.invoke(main, ["ld", "--bfile", prefix])
+    res = run_cli(["ld", "--bfile", prefix])
     assert res.exit_code != 0
-    res = runner.invoke(main, ["ld", "--bfile", prefix, "-kb", "5", "-cm", "1"])
+    res = run_cli(["ld", "--bfile", prefix, "-kb", "5", "-cm", "1"])
     assert res.exit_code != 0
 
 
@@ -243,10 +222,8 @@ def test_cli_engine_flags(tmp_path, rng):
     # lock the new engine-selection surface: every flag combination
     # produces oracle-parity output through the CLI
     import pandas as pd
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
-    from nldsc_tpu.io.plink import write_plink
+    from utils import run_cli
+    from nldsc_jax.io.plink import write_plink
     from utils import make_positions, random_genotypes
 
     m, n = 150, 120
@@ -263,7 +240,7 @@ def test_cli_engine_flags(tmp_path, rng):
         "f32-nosym": ["--engine", "f32", "--no-symmetric"],
     }.items():
         out = str(tmp_path / f"{name}.L2")
-        res = CliRunner().invoke(main, [
+        res = run_cli([
             "ld", "--bfile", prefix, "-kb", "40", "-maf", "0.01",
             "--block-size", "32", "-o", out, *flags])
         assert res.exit_code == 0, res.output
@@ -280,11 +257,9 @@ def test_cli_engine_flags(tmp_path, rng):
 def test_cli_ld_genome(tmp_path, rng):
     """ld-genome: many single-chromosome bfiles -> one .L2 each, matching
     per-file `ld` runs; glob and comma-list inputs."""
-    from click.testing import CliRunner
-
-    from nldsc_tpu.cli import main
-    from nldsc_tpu.io.plink import write_plink
-    from nldsc_tpu.ld.pipeline import estimate_lds
+    from utils import run_cli
+    from nldsc_jax.io.plink import write_plink
+    from nldsc_jax.ld.pipeline import estimate_lds
 
     prefixes = []
     for chrom in (20, 21):
@@ -295,9 +270,8 @@ def test_cli_ld_genome(tmp_path, rng):
         write_plink(p, g, bp=bp, chrom=chrom)
         prefixes.append(p)
 
-    runner = CliRunner()
     out_dir = str(tmp_path / "out")
-    res = runner.invoke(main, ["ld-genome", "--bfiles",
+    res = run_cli(["ld-genome", "--bfiles",
                                str(tmp_path / "chr2*"), "--out-dir", out_dir,
                                "-kb", "30", "-maf", "0.01", "--display"])
     assert res.exit_code == 0, res.output
@@ -311,13 +285,13 @@ def test_cli_ld_genome(tmp_path, rng):
 
     # comma list form + window-option validation + per-chromosome
     # sharding flags forwarded
-    res = runner.invoke(main, ["ld-genome", "--bfiles",
+    res = run_cli(["ld-genome", "--bfiles",
                                ",".join(prefixes), "--out-dir",
                                str(tmp_path / "out2"), "-kb", "30",
                                "-maf", "0.01", "--display",
                                "--shard-axis", "grid", "--n-devices", "4"])
     assert res.exit_code == 0, res.output
-    res = runner.invoke(main, ["ld-genome", "--bfiles", prefixes[0],
+    res = run_cli(["ld-genome", "--bfiles", prefixes[0],
                                "--out-dir", out_dir])
     assert res.exit_code != 0
 
@@ -325,7 +299,7 @@ def test_cli_ld_genome(tmp_path, rng):
     # the "No bfiles match" reason to the stderr logger and exits 1 —
     # CliRunner can't see that stream, so assert the exit + no outputs)
     out3 = str(tmp_path / "out3")
-    res = runner.invoke(main, ["ld-genome", "--bfiles",
+    res = run_cli(["ld-genome", "--bfiles",
                                str(tmp_path / "nope*"), "--out-dir",
                                out3, "-kb", "30"])
     import os
@@ -338,7 +312,7 @@ def test_cli_ld_genome(tmp_path, rng):
     import shutil
     for ext in (".bed", ".bim", ".fam"):
         shutil.copy(prefixes[0] + ext, str(sub / ("chr20" + ext)))
-    res = runner.invoke(main, ["ld-genome", "--bfiles",
+    res = run_cli(["ld-genome", "--bfiles",
                                f"{prefixes[0]},{sub / 'chr20'}",
                                "--out-dir", out3, "-kb", "30"])
     assert res.exit_code != 0 and not os.path.isdir(out3)
@@ -353,7 +327,7 @@ def test_cli_ld_genome(tmp_path, rng):
         annot_path, sep="\t", index=False)
     out4 = str(tmp_path / "out4")
     ck = str(tmp_path / "ck")
-    res = runner.invoke(main, ["ld-genome", "--bfiles",
+    res = run_cli(["ld-genome", "--bfiles",
                                ",".join(prefixes), "--out-dir", out4,
                                "-kb", "30", "-maf", "0.01", "--display",
                                "--annot", annot_path, "--streaming",

@@ -8,9 +8,9 @@ regression armor for the mask/correction algebra across all engines.
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
 
 from test_ld_device import assert_ld_parity
 from utils import make_positions, random_genotypes

@@ -10,12 +10,10 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
-from click.testing import CliRunner
 
-from nldsc_tpu.cli import main as cli_main
-from nldsc_tpu.io.plink import write_plink
+from nldsc_jax.io.plink import write_plink
 
-from utils import random_genotypes
+from utils import random_genotypes, run_cli
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +47,7 @@ def genome(tmp_path_factory):
 def test_ld_genome_then_h2(genome, tmp_path):
     td, ss_path, total_m = genome
     out_dir = str(tmp_path / "scores")
-    runner = CliRunner()
-    res = runner.invoke(cli_main, [
+    res = run_cli([
         "ld-genome", "--bfiles", f"{td}/chr*.bed", "--out-dir", out_dir,
         "-kb", "50", "-maf", "0.01", "--extra", "--display"])
     assert res.exit_code == 0, res.output
@@ -66,7 +63,7 @@ def test_ld_genome_then_h2(genome, tmp_path):
 
     for extra in ([], ["--strategy", "one-stg"], ["--on-device"]):
         out_json = str(tmp_path / f"h2_{len(extra)}.json")
-        res = runner.invoke(cli_main, [
+        res = run_cli([
             "h2", "--sumstats", str(ss_path), "--ref-ld", out_dir,
             "--w-ld", out_dir, "-s", out_json, "--display", *extra])
         assert res.exit_code == 0, res.output
@@ -96,8 +93,7 @@ def test_ld_genome_annot_then_partitioned_h2(genome, tmp_path):
     pd.concat(annot_rows).to_csv(annot_path, sep="\t", index=False)
 
     part_dir = str(tmp_path / "part")
-    runner = CliRunner()
-    res = runner.invoke(cli_main, [
+    res = run_cli([
         "ld-genome", "--bfiles", f"{td}/chr*.bed", "--out-dir", part_dir,
         "-kb", "50", "-maf", "0.01", "--annot", annot_path, "--display"])
     assert res.exit_code == 0, res.output
@@ -112,7 +108,7 @@ def test_ld_genome_annot_then_partitioned_h2(genome, tmp_path):
     assert "base.L2" in header and "cat.L2" in header
 
     out_json = str(tmp_path / "h2_part.json")
-    res = runner.invoke(cli_main, [
+    res = run_cli([
         "h2", "--sumstats", str(ss_path), "--ref-ld", part_dir,
         "--w-ld", part_dir, "--partitioned", "-s", out_json, "--display"])
     assert res.exit_code == 0, res.output
@@ -127,8 +123,7 @@ def test_ld_genome_resume_dir(genome, tmp_path):
     td, _, _ = genome
     out_dir = str(tmp_path / "scores")
     ck_dir = str(tmp_path / "ck")
-    runner = CliRunner()
-    res = runner.invoke(cli_main, [
+    res = run_cli([
         "ld-genome", "--bfiles", f"{td}/chr01.bed,{td}/chr02.bed",
         "--out-dir", out_dir, "-kb", "50", "-maf", "0.01",
         "--streaming", "--chunk-rows", "128",

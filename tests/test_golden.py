@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
-from nldsc_tpu.parallel import ld_scores_sharded, snp_mesh
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
+from nldsc_jax.parallel import ld_scores_sharded, snp_mesh
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "golden_chr22_toy.npz")
@@ -45,18 +45,12 @@ def test_oracle_reproduces_golden(golden):
 
 
 @pytest.mark.parametrize(
-    "engine", ["int8", "int8-sym", "int8-pallas-sym",
-               "f32-sym", "f32-plain"])
+    "engine", ["int8", "int8-sym", "f32-sym", "f32-plain"])
 def test_engines_match_golden(golden, engine):
-    # r5: the full-band "int8-pallas" combo is gone from the matrix —
-    # the kernel was retired (pipeline raises NLDSCParameterError;
-    # ld_pallas_sym stays parity-pinned here and in test_ld_pallas_sym)
     cfg = LDConfig(ld_wind=WIND, wind_metric="bp", maf_thr=MAF, std_thr=STD,
                    rsq_thr=RSQ, block_size=32,
                    use_int8=engine.startswith("int8"),
-                   symmetric=engine.endswith("sym"),
-                   use_pallas="pallas" in engine,
-                   interpret="pallas" in engine, sample_chunk=128)
+                   symmetric=engine.endswith("sym"))
     res = compute_ld_scores(golden["genotypes"], golden["positions"], cfg)
     check(res, golden)
 
@@ -77,7 +71,7 @@ ANNOT_WIND, ANNOT_STD = 12000.0, 1e-4
 @pytest.mark.parametrize("engine", ["int8", "f32", "streaming"])
 def test_annot_engines_match_golden(engine, tmp_path):
     """Frozen partitioned-LD outputs across every annot-capable route."""
-    from nldsc_tpu.ld.pipeline import compute_ld_scores_annot
+    from nldsc_jax.ld.pipeline import compute_ld_scores_annot
 
     gold = dict(np.load(GOLDEN_ANNOT))
     g, pos, annot = gold["genotypes"], gold["positions"], gold["annot"]
@@ -85,8 +79,8 @@ def test_annot_engines_match_golden(engine, tmp_path):
                    std_thr=ANNOT_STD, rsq_thr=RSQ, block_size=32,
                    use_int8=engine != "f32")
     if engine == "streaming":
-        from nldsc_tpu.io.plink import BedReader, write_plink
-        from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+        from nldsc_jax.io.plink import BedReader, write_plink
+        from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
         prefix = write_plink(tmp_path / "ga", g, bp=pos.astype(np.int64))
         # write_plink stores positions; skip-sentinel rows (-1) are not

@@ -48,7 +48,7 @@ def synth_h2_data(rng, m=20000, h2_add=0.4, h2_dom=0.05, n_gwas=50000.0):
 
 def test_fast_vs_slow_jackknife():
     rng = np.random.default_rng(7)
-    from nldsc_tpu.h2 import jackknife as jk
+    from nldsc_jax.h2 import jackknife as jk
 
     with jax.enable_x64(True):
         n, p = 5000, 2
@@ -64,7 +64,7 @@ def test_fast_vs_slow_jackknife():
 
 def test_jackknife_pseudovalue_identity():
     rng = np.random.default_rng(8)
-    from nldsc_tpu.h2 import jackknife as jk
+    from nldsc_jax.h2 import jackknife as jk
 
     with jax.enable_x64(True):
         d = np.asarray(rng.normal(size=(30, 2)))
@@ -77,7 +77,7 @@ def test_jackknife_pseudovalue_identity():
 
 def test_nnls_slow_jackknife():
     rng = np.random.default_rng(9)
-    from nldsc_tpu.h2 import jackknife as jk
+    from nldsc_jax.h2 import jackknife as jk
 
     with jax.enable_x64(True):
         n = 400
@@ -89,7 +89,7 @@ def test_nnls_slow_jackknife():
 
 def test_h2_recovers_truth():
     rng = np.random.default_rng(1234)
-    from nldsc_tpu.h2.regression import hsq_estimate
+    from nldsc_jax.h2.regression import hsq_estimate
 
     # keep E[chi2] well under the two-step cutoff (30) so step-1 masking
     # doesn't truncate the signal: max expectation ~ 1 + N*h2*Lmax/M ~ 10
@@ -107,7 +107,7 @@ def test_h2_recovers_truth():
 
 
 def _run_both(ref_reg, data, intercept=None, two_step=None, n_blocks=50):
-    from nldsc_tpu.h2.regression import hsq_estimate
+    from nldsc_jax.h2.regression import hsq_estimate
 
     ref = ref_reg.HSQEstimator(
         chisq=data["chisq"], x_add=data["ld"], w_add=data["ld"],
@@ -152,7 +152,7 @@ def test_parity_vs_reference_constrained_additive(ref_reg):
     # The reference's own dominance stage crashes on a constrained additive
     # intercept (regressions.py:540 calls .flatten() on a float — a latent
     # bug its CLI never reaches; ours handles it).  Compare additive only.
-    from nldsc_tpu.h2.regression import hsq_additive
+    from nldsc_jax.h2.regression import hsq_additive
 
     data = synth_h2_data(rng, m=12000)
     ref = ref_reg.HSQAdditive(
@@ -180,7 +180,7 @@ def test_partitioned_h2_matches_reference(ref_reg):
     chisq = (expect * rng.chisquare(1, m)).clip(1e-8).reshape(m, 1)
     x = np.column_stack([ld1, ld2])
 
-    from nldsc_tpu.h2.regression import hsq_additive
+    from nldsc_jax.h2.regression import hsq_additive
 
     ref = ref_reg.HSQAdditive(chisq, x, w, N, M, n_blocks=40, two_step=None)
     with jax.enable_x64(True):
@@ -200,7 +200,7 @@ def test_parity_vs_reference_separate_weights(ref_reg):
     """--w-ld != --ref-ld (VERDICT r2 item 7): the reference CODE accepts
     separate w_add/w_dom (only its CLI forbids them) — parity-test the
     lifted restriction directly against the reference estimator."""
-    from nldsc_tpu.h2.regression import hsq_estimate
+    from nldsc_jax.h2.regression import hsq_estimate
 
     rng = np.random.default_rng(77)
     data = synth_h2_data(rng, m=12000, h2_add=0.3, h2_dom=0.02,
@@ -224,7 +224,7 @@ def test_parity_vs_reference_separate_weights(ref_reg):
 
 def test_separate_weights_slow_jackknife_crosscheck():
     """Separate-weight fit: fast and slow jackknives must agree."""
-    from nldsc_tpu.h2.regression import hsq_estimate
+    from nldsc_jax.h2.regression import hsq_estimate
 
     rng = np.random.default_rng(78)
     data = synth_h2_data(rng, m=6000, h2_add=0.3, h2_dom=0.02,
@@ -251,9 +251,9 @@ def test_estimate_h2_frames_separate_w_ld():
     call on the hand-aligned arrays (incl. SNPs dropped by the merge)."""
     import pandas as pd
 
-    from nldsc_tpu.config import H2Config
-    from nldsc_tpu.h2.pipeline import estimate_h2_frames
-    from nldsc_tpu.h2.regression import hsq_estimate
+    from nldsc_jax.config import H2Config
+    from nldsc_jax.h2.pipeline import estimate_h2_frames
+    from nldsc_jax.h2.regression import hsq_estimate
 
     rng = np.random.default_rng(79)
     data = synth_h2_data(rng, m=5000, h2_add=0.3, h2_dom=0.0,
@@ -289,7 +289,7 @@ def test_estimate_h2_frames_separate_w_ld():
 
 
 def test_two_step_rejects_partitioned():
-    from nldsc_tpu.h2.regression import hsq_additive
+    from nldsc_jax.h2.regression import hsq_additive
 
     rng = np.random.default_rng(3)
     m = 500
@@ -305,7 +305,7 @@ def test_two_step_rejects_partitioned():
 def test_liability_conversion():
     from scipy import stats as ss
 
-    from nldsc_tpu.h2.regression import h2_obs_to_liability
+    from nldsc_jax.h2.regression import h2_obs_to_liability
 
     K, P = 0.01, 0.5
     thresh = ss.norm.isf(K)
@@ -319,7 +319,7 @@ def test_liability_conversion():
 def test_liability_in_pipeline_summary(tmp_path):
     import pandas as pd
 
-    from nldsc_tpu.h2.pipeline import estimate_h2
+    from nldsc_jax.h2.pipeline import estimate_h2
 
     rng = np.random.default_rng(4)
     m = 3000
@@ -348,8 +348,8 @@ def test_one_stage_strategy_recovers_signal():
     # and check the joint estimator recovers both partitions.
     import pandas as pd
 
-    from nldsc_tpu.config import H2Config
-    from nldsc_tpu.h2.pipeline import estimate_h2_frames
+    from nldsc_jax.config import H2Config
+    from nldsc_jax.h2.pipeline import estimate_h2_frames
 
     rng = np.random.default_rng(2)
     m, n_ind = 8000, 50000.0
@@ -375,8 +375,8 @@ def test_one_stage_strategy_recovers_signal():
 
 
 def test_h2_config_validation():
-    from nldsc_tpu.config import H2Config
-    from nldsc_tpu.core.errors import NLDSCParameterError
+    from nldsc_jax.config import H2Config
+    from nldsc_jax.core.errors import NLDSCParameterError
 
     with pytest.raises(NLDSCParameterError):
         H2Config(strategy="bogus")
@@ -395,7 +395,7 @@ def test_hsq_partitioned_api(ref_reg):
     expect = 1 + 15000 * (x @ coefs)
     chisq = (expect * rng.chisquare(1, m)).clip(1e-8).reshape(m, 1)
 
-    from nldsc_tpu.h2.regression import hsq_partitioned
+    from nldsc_jax.h2.regression import hsq_partitioned
 
     ref = ref_reg.HSQAdditive(chisq, x, w, N, M, n_blocks=30, two_step=None)
     with jax.enable_x64(True):
@@ -412,8 +412,8 @@ def test_partitioned_reader_and_pipeline(tmp_path):
     # separate single-column weights file, and run the partitioned CLI path
     import pandas as pd
 
-    from nldsc_tpu.h2.pipeline import estimate_h2_partitioned
-    from nldsc_tpu.io.ldscores import read_ld_scores_partitioned
+    from nldsc_jax.h2.pipeline import estimate_h2_partitioned
+    from nldsc_jax.io.ldscores import read_ld_scores_partitioned
 
     rng = np.random.default_rng(11)
     m, n_ind = 6000, 40000.0
@@ -463,7 +463,7 @@ def test_partitioned_reader_headerless_m(tmp_path):
     # ldsc-style headerless .M row of p numbers
     import pandas as pd
 
-    from nldsc_tpu.io.ldscores import read_ld_scores_partitioned
+    from nldsc_jax.io.ldscores import read_ld_scores_partitioned
 
     rng = np.random.default_rng(3)
     m = 100

@@ -1,23 +1,23 @@
 """On-device (f32) h2 path vs the default f64-on-CPU path.
 
-TPUs have no native float64, so the on-device h2 runs in f32 with
-compensated jackknife accumulation (jackknife.py `_comp_fold0` +
+The on-device h2 runs in f32 with compensated jackknife accumulation (jackknife.py `_comp_fold0` +
 double-single delete systems).  These tests validate the numerics
 strategy: the f32 path (same code, x64 disabled) must match the f64 path
 to ≤2e-5 relative on every reported statistic (measured worst ≤9e-6
 across two-step/free/constrained/one-stg and M=400k — the residual comes
 from f32 input rounding and the QR in the IRWLS warm-up, not from
 accumulation); diagnostics with near-zero expectation (residuals.mean)
-are compared absolutely.  The CPU-vs-TPU backend difference on identical
-f32 ops is ulp-level, so CPU f32 is a faithful stand-in (the real-chip
-run is exercised via the CLI drive).
+are compared absolutely.  The CPU-vs-GPU backend difference on identical
+f32 ops is ulp-level when matmuls run at full f32 precision (the
+on-device path sets it), so CPU f32 is a faithful stand-in; chip_smoke.py
+runs the real-card comparison.
 """
 
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import H2Config
-from nldsc_tpu.h2.pipeline import estimate_h2_frames
+from nldsc_jax.config import H2Config
+from nldsc_jax.h2.pipeline import estimate_h2_frames
 
 from test_h2 import synth_h2_data
 
@@ -91,7 +91,7 @@ def test_solve_posdef_unrolled_cholesky():
     match LAPACK at f64 precision — the partitioned on-device solver."""
     import jax
 
-    from nldsc_tpu.h2.jackknife import solve_posdef
+    from nldsc_jax.h2.jackknife import solve_posdef
 
     rng = np.random.default_rng(504)
     with jax.enable_x64(True):
@@ -110,7 +110,7 @@ def test_ondevice_partitioned(tmp_path):
     per-annotation statistic (p = 5 annotations + intercept = 6)."""
     import pandas as pd
 
-    from nldsc_tpu.h2.pipeline import estimate_h2_partitioned
+    from nldsc_jax.h2.pipeline import estimate_h2_partitioned
 
     rng = np.random.default_rng(505)
     m, p = 60000, 5
@@ -193,7 +193,7 @@ def test_qr_solve_mgs_ill_conditioned_f32():
     and stays within ~κ·eps of the f64 reference answer."""
     import jax.numpy as jnp
 
-    from nldsc_tpu.h2.irwls import qr_solve_mgs
+    from nldsc_jax.h2.irwls import qr_solve_mgs
 
     rng = np.random.default_rng(3)
     n = 20000

@@ -5,9 +5,9 @@
 import numpy as np
 import pandas as pd
 
-from nldsc_tpu.h2.pipeline import estimate_h2
-from nldsc_tpu.io.plink import write_plink
-from nldsc_tpu.ld.pipeline import estimate_lds
+from nldsc_jax.h2.pipeline import estimate_h2
+from nldsc_jax.io.plink import write_plink
+from nldsc_jax.ld.pipeline import estimate_lds
 
 from utils import make_positions, random_genotypes
 

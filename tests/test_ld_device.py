@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
-from nldsc_tpu.ld import windows
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
+from nldsc_jax.ld import windows
 
 from utils import adversarial_genotypes, make_positions, random_genotypes
 
@@ -31,7 +31,6 @@ def make_config(**kw):
     kw.setdefault("std_thr", 1e-4)
     kw.setdefault("rsq_thr", 1e-3)
     kw.setdefault("block_size", 64)
-    kw.setdefault("use_pallas", False)
     return LDConfig(**kw)
 
 
@@ -100,7 +99,7 @@ def test_window_bounds_match_predicate(rng):
 
 
 def test_unsorted_positions_rejected():
-    from nldsc_tpu.core.errors import NLDSCDataError
+    from nldsc_jax.core.errors import NLDSCDataError
 
     pos = np.array([1.0, 3.0, 2.0])
     with pytest.raises(NLDSCDataError):

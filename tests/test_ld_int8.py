@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
 
 from test_ld_device import assert_ld_parity
 from utils import adversarial_genotypes, make_positions, random_genotypes
@@ -79,25 +79,12 @@ def test_int8_heavy_missing(rng):
     assert_ld_parity(res, ora)
 
 
-@pytest.mark.parametrize("missing_rate", [0.0, 0.05])
-def test_int8_pallas_kernel(rng, missing_rate):
-    g = random_genotypes(rng, 96, 140, missing_rate=missing_rate)
-    pos = make_positions(96, spacing=700)
-    cfg = _cfg(block_size=32, use_pallas=True, interpret=True,
-               sample_chunk=128)
-    res = compute_ld_scores(g, pos, cfg)
-    ora = oracle_ld(g, pos, cfg.ld_wind, cfg.maf_thr, cfg.std_thr,
-                    cfg.rsq_thr)
-    tol = dict(rtol=3e-6, atol=3e-6) if missing_rate == 0 else {}
-    assert_ld_parity(res, ora, **tol)
-
-
 def test_int8_sym2_direct_parity(rng):
     # the two-pass symmetric engine is kept as a measured-slower alternate
     # (scripts/time_sym2.py); pin its correctness directly
     import jax.numpy as jnp
 
-    from nldsc_tpu.ld import ld_int8, windows
+    from nldsc_jax.ld import ld_int8, windows
 
     m, n, B = 192, 160, 16
     g = random_genotypes(rng, m, n, missing_rate=0.04)
@@ -129,8 +116,8 @@ def test_int8_sym2_direct_parity(rng):
 def test_segmented_progress_matches_single_scan(rng):
     # the percent/ETA progress path dispatches sym_scan_segment per pivot
     # segment; summed segments + finalize must equal the one-shot engine
-    from nldsc_tpu.config import LDConfig
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
+    from nldsc_jax.config import LDConfig
+    from nldsc_jax.ld.pipeline import compute_ld_scores
 
     g = random_genotypes(rng, 260, 200, missing_rate=0.03)
     pos = make_positions(260, spacing=700, jitter_rng=rng)
@@ -154,8 +141,8 @@ def test_bucket_shapes_identical_outputs(rng):
     """bucket_shapes pads the compiled geometry only: outputs equal the
     unbucketed run bitwise (padded rows have empty windows + unusable
     flags; wider bands add only masked pairs)."""
-    from nldsc_tpu.config import LDConfig
-    from nldsc_tpu.ld.pipeline import _bucket_rows, compute_ld_scores
+    from nldsc_jax.config import LDConfig
+    from nldsc_jax.ld.pipeline import _bucket_rows, compute_ld_scores
 
     from utils import make_positions, random_genotypes
 
@@ -185,7 +172,7 @@ def test_bucket_shapes_collapse_genome():
     """The compile-shape tuples of a 20-chromosome genome collapse to a
     handful under bucketing (the compile-per-size cost ld-genome pays is
     mechanical: one executable per distinct (m_pad, band_k, right_k))."""
-    from nldsc_tpu.ld.pipeline import _bucket_k, _bucket_rows
+    from nldsc_jax.ld.pipeline import _bucket_k, _bucket_rows
 
     B = 512
     sizes = [8192 + (c % 5) * 2048 for c in range(1, 21)]

@@ -9,9 +9,9 @@ the f32 score sums to summation-order ulps.
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
 
 from test_ld_device import assert_ld_parity, make_config
 from utils import adversarial_genotypes, make_positions, random_genotypes
@@ -90,8 +90,8 @@ def test_split_streaming_matches_dense_and_oracle(tmp_path, rng):
     ownership masking): row-sparse
     missing data auto-selects it; results match the in-core split engine
     and the oracle, across chunk sizes (incl. halo > chunk)."""
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
     m, n = 400, 180
     g = row_level_missing(rng, m, n, row_frac=0.05, entry_rate=0.2)
@@ -119,8 +119,8 @@ def test_split_streaming_resume(tmp_path, rng):
     """Split-mode streaming checkpoints/resumes like the global engine,
     and a checkpoint written by the global engine refuses to resume under
     split (engine name pinned in the meta)."""
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
     m, n = 320, 150
     g = row_level_missing(rng, m, n, row_frac=0.04, entry_rate=0.25)
@@ -157,8 +157,8 @@ def test_compact_missing_rows_matches_materialized(rng):
     which are all-missing under pad_val=-1)."""
     import jax.numpy as jnp
 
-    from nldsc_tpu.ld.ld_int8 import preprocess_int8
-    from nldsc_tpu.ld.ld_split import compact_missing_rows
+    from nldsc_jax.ld.ld_int8 import preprocess_int8
+    from nldsc_jax.ld.ld_split import compact_missing_rows
 
     m, n = 96, 130
     g = random_genotypes(rng, m, n, missing_rate=0.1)

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from nldsc_tpu.io.ldscores import read_ld_scores, write_m_files
+from nldsc_jax.io.ldscores import read_ld_scores, write_m_files
 
 
 def _toy_l2(chrom, m, rng, extra=True):
@@ -41,8 +41,8 @@ def test_directory_mode_with_sidecars(tmp_path, rng):
     assert m == tot_m
     assert 0 < md < tot_m
     # sorted by CHR, BP
-    assert (scores.groupby("CHR")["BP"].apply(
-        lambda s: (s.diff().dropna() > 0).all())).all()
+    key = scores["CHR"] * 10**9 + scores["BP"]
+    assert (np.diff(key) > 0).all()
 
 
 def test_fallback_requires_extra_columns(tmp_path, rng):
@@ -80,7 +80,7 @@ def test_use_m_prefers_dot_m(tmp_path, rng):
 def test_sumstats_reader_variants(tmp_path, rng):
     import gzip
 
-    from nldsc_tpu.io.sumstats import read_sumstats
+    from nldsc_jax.io.sumstats import read_sumstats
 
     df = pd.DataFrame({
         "SNP": [f"rs{i}" for i in range(50)] + ["rs0"],  # dup
@@ -103,4 +103,6 @@ def test_sumstats_reader_variants(tmp_path, rng):
     with gzip.open(gz, "wt") as f:
         df.to_csv(f, sep="\t", index=False, na_rep=".")
     out_gz = read_sumstats(str(gz))
-    pd.testing.assert_frame_equal(out_gz, out)
+    assert out_gz.columns == out.columns
+    for c in out.columns:
+        np.testing.assert_array_equal(out_gz[c], out[c])

@@ -6,11 +6,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from nldsc_tpu.io.plink import BedReader, write_plink
+from nldsc_jax.io.plink import BedReader, write_plink
 
 from utils import random_genotypes
 
-NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "nldsc_tpu", "native")
+NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "nldsc_jax", "native")
 
 
 @pytest.fixture(scope="module")
@@ -22,7 +22,7 @@ def native_lib():
                            capture_output=True, timeout=120)
         except Exception:
             pytest.skip("no C++ toolchain to build the native decoder")
-    from nldsc_tpu.native import bed_decode
+    from nldsc_jax.native import bed_decode
 
     if not bed_decode.available():
         pytest.skip("native decoder not available")

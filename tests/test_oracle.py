@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from nldsc_tpu.ld.oracle import oracle_ld, preprocess
+from nldsc_jax.ld.oracle import oracle_ld, preprocess
 
 from utils import adversarial_genotypes, make_positions, random_genotypes
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from nldsc_tpu.io.plink import (
+from nldsc_jax.io.plink import (
     BedReader, PlinkDataset, decode_bed_bytes, encode_bed_bytes, write_plink,
 )
-from nldsc_tpu.core.errors import NLDSCDataError, NLDSCParameterError
+from nldsc_jax.core.errors import NLDSCDataError, NLDSCParameterError
 
 from utils import random_genotypes
 
@@ -63,8 +63,8 @@ def test_unpack_bed_device_matches_host_decode(tmp_path, rng):
     # odd N (pad bitpairs in the last byte), and lane/row padding
     import jax.numpy as jnp
 
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.preprocess import unpack_bed
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.preprocess import unpack_bed
     from utils import random_genotypes
 
     m, n = 37, 133                      # n % 4 = 1: 3 pad bitpairs
@@ -91,9 +91,9 @@ def test_unpack_bed_device_matches_host_decode(tmp_path, rng):
 
 
 def test_packed_pipeline_matches_array_pipeline(tmp_path, rng):
-    from nldsc_tpu.config import LDConfig
-    from nldsc_tpu.io.plink import BedReader, write_plink
-    from nldsc_tpu.ld.pipeline import compute_ld_scores
+    from nldsc_jax.config import LDConfig
+    from nldsc_jax.io.plink import BedReader, write_plink
+    from nldsc_jax.ld.pipeline import compute_ld_scores
     from utils import make_positions, random_genotypes
 
     for miss in (0.0, 0.04):
@@ -115,15 +115,18 @@ def test_packed_pipeline_matches_array_pipeline(tmp_path, rng):
 
 
 def test_staged_put_chunked_identity(rng):
-    """_staged_put (64 MB-chunked host->device transfer) is bitwise
-    identical to a monolithic transfer, incl. uneven chunk tails."""
-    from nldsc_tpu.ld.pipeline import _staged_put
+    """The host->device put is bitwise identical to its input and is
+    timed into the transfer stage."""
+    import jax
 
+    from nldsc_jax.ld.pipeline import STAGE_TIMES, _device_put
+
+    STAGE_TIMES.clear()
     arr = rng.integers(-1, 3, size=(37, 257)).astype(np.int8)
-    out = _staged_put(arr, chunk_bytes=257 * 8)   # 8-row chunks, 37 % 8 != 0
+    out = _device_put(arr, device=jax.devices()[1])
     np.testing.assert_array_equal(np.asarray(out), arr)
-    out1 = _staged_put(arr)                        # single-chunk path
-    np.testing.assert_array_equal(np.asarray(out1), arr)
+    assert out.devices() == {jax.devices()[1]}
+    assert STAGE_TIMES["transfer_s"] >= 0
 
 
 def test_read_exact_loops_over_short_reads():
@@ -133,8 +136,8 @@ def test_read_exact_loops_over_short_reads():
     genuine truncation."""
     import pytest
 
-    from nldsc_tpu.core.errors import NLDSCDataError
-    from nldsc_tpu.io.plink import _read_exact
+    from nldsc_jax.core.errors import NLDSCDataError
+    from nldsc_jax.io.plink import _read_exact
 
     class ShortReader:
         """readinto() that delivers at most `cap` bytes per call."""

@@ -8,8 +8,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from nldsc_tpu.ld.ld_int8 import preprocess_int8
-from nldsc_tpu.ld.preprocess import preprocess_block
+from nldsc_jax.ld.ld_int8 import preprocess_int8
+from nldsc_jax.ld.preprocess import preprocess_block
 
 from utils import adversarial_genotypes, random_genotypes
 

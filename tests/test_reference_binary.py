@@ -1,9 +1,9 @@
 """Executed-vs-executed LD parity: the reference's OWN C++ kernel.
 
-``nldsc_tpu/native/libref_ldscore.so`` is the reference's ``calculate()``
+``nldsc_jax/native/libref_ldscore.so`` is the reference's ``calculate()``
 (/root/reference/nldsc/ldscore/_ldscore/ldscalc.h:8-65) compiled read-only
 from the mounted reference tree against a minimal Armadillo-subset shim
-(nldsc_tpu/native/refshim/).  These tests retire PARITY.md's last
+(nldsc_jax/native/refshim/).  These tests retire PARITY.md's last
 interpreted-not-executed risk items: the all-missing "poison" path
 (encoder.h:99-122 -> ldscalc.h:36-46), zero-sd semantics, counters,
 threshold gates, imputation, and window membership are asserted against
@@ -29,11 +29,11 @@ than copied into our semantics (both documented in PARITY.md):
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.io.plink import write_plink
-from nldsc_tpu.ld.oracle import oracle_ld, preprocess
-from nldsc_tpu.ld.pipeline import compute_ld_scores
-from nldsc_tpu.native import refbinary
+from nldsc_jax.config import LDConfig
+from nldsc_jax.io.plink import write_plink
+from nldsc_jax.ld.oracle import oracle_ld, preprocess
+from nldsc_jax.ld.pipeline import compute_ld_scores
+from nldsc_jax.native import refbinary
 
 from utils import adversarial_genotypes, make_positions, random_genotypes
 

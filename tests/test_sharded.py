@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.ld.oracle import oracle_ld
-from nldsc_tpu.ld.pipeline import compute_ld_scores
-from nldsc_tpu.parallel import ld_scores_sharded, snp_mesh
+from nldsc_jax.config import LDConfig
+from nldsc_jax.ld.oracle import oracle_ld
+from nldsc_jax.ld.pipeline import compute_ld_scores
+from nldsc_jax.parallel import ld_scores_sharded, snp_mesh
 
 from test_ld_device import assert_ld_parity
 from utils import adversarial_genotypes, make_positions, random_genotypes
@@ -98,7 +98,7 @@ def test_sharded_int8_matches_oracle(rng, missing_rate):
 
 @pytest.mark.parametrize("missing_rate", [0.0, 0.05])
 def test_sample_sharded_matches_oracle(rng, missing_rate):
-    from nldsc_tpu.parallel.sample_sharded import ld_scores_sample_sharded
+    from nldsc_jax.parallel.sample_sharded import ld_scores_sample_sharded
 
     g = random_genotypes(rng, 96, 300, missing_rate=missing_rate)
     pos = make_positions(96, spacing=800)
@@ -111,7 +111,7 @@ def test_sample_sharded_matches_oracle(rng, missing_rate):
 
 
 def test_sample_sharded_device_count_invariance(rng):
-    from nldsc_tpu.parallel.sample_sharded import ld_scores_sample_sharded
+    from nldsc_jax.parallel.sample_sharded import ld_scores_sample_sharded
 
     g = random_genotypes(rng, 64, 200, missing_rate=0.02)
     pos = make_positions(64, spacing=700)
@@ -125,7 +125,7 @@ def test_sample_sharded_device_count_invariance(rng):
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2), (8, 1), (1, 8)])
 def test_grid_sharded_matches_oracle(rng, shape):
-    from nldsc_tpu.parallel.grid_sharded import (grid_mesh,
+    from nldsc_jax.parallel.grid_sharded import (grid_mesh,
                                                  ld_scores_grid_sharded)
 
     g = random_genotypes(rng, 96, 200, missing_rate=0.03)
@@ -138,7 +138,7 @@ def test_grid_sharded_matches_oracle(rng, shape):
 
 
 def test_grid_sharded_no_missing_exact(rng):
-    from nldsc_tpu.parallel.grid_sharded import (grid_mesh,
+    from nldsc_jax.parallel.grid_sharded import (grid_mesh,
                                                  ld_scores_grid_sharded)
 
     g = random_genotypes(rng, 64, 150, missing_rate=0.0)
@@ -176,7 +176,7 @@ def test_snp_sharded_bitwise_across_device_counts(rng, missing_rate):
 def test_sample_sharded_bitwise_across_device_counts(rng, missing_rate):
     """Sample-axis sharding: exact integer psum of the S-matrices makes
     the epilogue inputs shard-count-independent — outputs are bitwise."""
-    from nldsc_tpu.parallel.sample_sharded import ld_scores_sample_sharded
+    from nldsc_jax.parallel.sample_sharded import ld_scores_sample_sharded
 
     g = random_genotypes(rng, 96, 300, missing_rate=missing_rate)
     pos = make_positions(96, spacing=700)
@@ -210,7 +210,7 @@ def test_sharded_counters_exact_vs_dense(rng):
 
 def test_sharded_packed_matches_dense(tmp_path, rng):
     # packed (2-bit) rows scattered over the mesh + device unpack == dense
-    from nldsc_tpu.io.plink import BedReader, write_plink
+    from nldsc_jax.io.plink import BedReader, write_plink
 
     m, n = 256, 140
     g = random_genotypes(rng, m, n, missing_rate=0.03)

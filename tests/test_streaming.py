@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from nldsc_tpu.config import LDConfig
-from nldsc_tpu.io.plink import BedReader, write_plink
-from nldsc_tpu.ld.pipeline import compute_ld_scores
-from nldsc_tpu.ld.streaming import compute_ld_scores_streaming
+from nldsc_jax.config import LDConfig
+from nldsc_jax.io.plink import BedReader, write_plink
+from nldsc_jax.ld.pipeline import compute_ld_scores
+from nldsc_jax.ld.streaming import compute_ld_scores_streaming
 
 from utils import make_positions, random_genotypes
 
@@ -43,13 +43,13 @@ def test_streaming_matches_dense(tmp_path, rng, use_int8):
 def test_streaming_int8_no_missing(tmp_path, rng):
     g = random_genotypes(rng, 200, 120, missing_rate=0.0)
     pos = make_positions(200, spacing=900)
-    from nldsc_tpu.io.plink import write_plink
+    from nldsc_jax.io.plink import write_plink
 
     prefix = write_plink(tmp_path / "nomiss", g, bp=pos.astype(np.int64))
     bed = BedReader(prefix + ".bed", 200, 120)
     cfg = LDConfig(ld_wind=7000, wind_metric="bp", maf_thr=0.01,
                    std_thr=1e-4, rsq_thr=1e-3, block_size=16)
-    from nldsc_tpu.ld.oracle import oracle_ld
+    from nldsc_jax.ld.oracle import oracle_ld
 
     streamed = compute_ld_scores_streaming(bed, pos.astype(np.float64), cfg,
                                            chunk_rows=64)
@@ -207,7 +207,7 @@ def test_streaming_grid_matches_dense(tmp_path, rng):
     # Sample psums are exact integer sums and chunk geometry is
     # layout-independent, so results must be BITWISE identical across
     # grid layouts and equal to the dense engine to summation ulps.
-    from nldsc_tpu.parallel.grid_sharded import grid_mesh
+    from nldsc_jax.parallel.grid_sharded import grid_mesh
 
     g, pos, bed = _setup(tmp_path, rng, m=400)
     cfg = LDConfig(ld_wind=8000, wind_metric="bp", maf_thr=0.01,

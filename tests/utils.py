@@ -2,6 +2,10 @@
 
 from __future__ import annotations
 
+import contextlib
+import io
+from types import SimpleNamespace
+
 import numpy as np
 
 
@@ -55,3 +59,17 @@ def make_positions(m: int, spacing: int = 1000, jitter_rng=None,
     for i in skip_idx:
         bp[i] = -1.0
     return bp
+
+
+def run_cli(argv: list[str]) -> SimpleNamespace:
+    """Run the CLI in-process; ``exit_code`` and captured stdout
+    ``output`` (argparse usage errors exit through SystemExit)."""
+    from nldsc_jax.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = main(argv)
+        except SystemExit as ex:
+            code = ex.code
+    return SimpleNamespace(exit_code=code, output=buf.getvalue())
